@@ -1,8 +1,8 @@
-"""advancedvi_jl_tpu — a TPU-native variational-inference framework.
+"""advancedvi_jl_tpu — a variational-inference framework in JAX.
 
-A from-scratch JAX/XLA/pjit/Pallas framework covering the full algorithm
-surface of TuringLang/AdvancedVI.jl (see SURVEY.md for the structural analysis
-of the reference), redesigned TPU-first:
+A from-scratch JAX/XLA framework covering the full algorithm surface of
+TuringLang/AdvancedVI.jl (see SURVEY.md for the structural analysis of the
+reference), redesigned for an accelerator:
 
 - families, optimizer states, and algorithm states are pytrees;
 - the whole SGD step (sample -> log-density -> entropy -> grad -> update ->
@@ -10,7 +10,7 @@ of the reference), redesigned TPU-first:
 - the Monte-Carlo sample axis and the data minibatch axis are device-mesh
   axes with psum reductions (parallel/);
 - measure-space (natural-gradient) algorithms are fused batched linear
-  algebra on the MXU.
+  algebra (cuBLAS/cuSOLVER on a GPU).
 """
 
 from .core.problem import (
@@ -121,18 +121,6 @@ from .utils.checkpoint import restore_state, save_state
 from .utils.data import HostDataLoader, PrefetchingLoader, optimize_streamed
 from .utils.diagnostics import importance_diagnostics, pareto_khat
 from .utils.progress import ProgressMeter
-from .ops.pallas.fused_advi import (  # whole-loop fused engines (TPU)
-    FusedADVI,
-    FusedLogRegADVI,
-    FusedModelSpec,
-    FusedProxADVI,
-    FusedScoreGradVI,
-    ad_spec,
-    fused_spec_for,
-    logreg_minibatch_hbm_spec,
-    logreg_minibatch_spec,
-)
-from .ops.pallas.fused_chains import FusedChainsADVI
 
 from . import ppl  # model-ingestion DSL + numpyro bridge (L8)
 

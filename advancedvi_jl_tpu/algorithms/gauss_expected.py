@@ -1,9 +1,9 @@
 """Gaussian expectations of the target's gradient and Hessian.
 
-TPU-native redesign of ``gaussian_expectation_gradient_and_hessian!``
+Redesign of ``gaussian_expectation_gradient_and_hessian!``
 (reference: src/algorithms/gauss_expected_grad_hess.jl:20-80).  The
 reference's per-sample Julia loop with mutable buffers becomes batched
-``vmap`` evaluation plus MXU matmuls:
+``vmap`` evaluation plus matmuls:
 
 - **Hessian path** (order-2-capable targets): sample average of
   ``vmap(hessian)`` — one batched evaluation.
@@ -97,7 +97,7 @@ def gaussian_expected_grad_hess(
         logpi, grads = jax.vmap(lambda zz: log_density_and_grad(prob, zz))(z)
         logpi_avg = jnp.mean(logpi)
         grad_avg = jnp.mean(grads, axis=0)
-        A = (u.T @ grads) / n_samples  # (d, d) — one MXU matmul
+        A = (u.T @ grads) / n_samples  # (d, d) — one matmul
         hess_avg = solve_triangular(C.T, A, lower=False)
         return logpi_avg, grad_avg, hess_avg
 

@@ -1,6 +1,6 @@
 """Measure-space / natural-gradient VI algorithms.
 
-TPU-native redesigns of the reference's four measure-space algorithms — each
+Redesigns of the reference's four measure-space algorithms — each
 step is a handful of (d, d) matrix ops compiled into ONE jitted XLA program
 (cholesky / triangular-solve via lax.linalg, matrix square roots via a single
 symmetric eigendecomposition):
@@ -20,6 +20,8 @@ shardable axis (parallel/).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 from typing import Any, Optional
 
@@ -287,12 +289,12 @@ class KLMinWassFwdBwd(MeasureSpaceAlgorithm):
       Sigma' = (Sigma_half + 2 eta I + sqrtm(Sigma_half (Sigma_half+4 eta I)))/2
     (reference: klminwassfwdbwd.jl:80-122).
 
-    TPU-native: Sigma_half and Sigma_half + 4 eta I commute, so the prox is a
+    Sigma_half and Sigma_half + 4 eta I commute, so the prox is a
     SINGLE symmetric eigendecomposition with the eigenvalue map
     lam' = (lam + 2 eta + sqrt(lam (lam + 4 eta)))/2 — no general sqrtm
-    needed.  ``sqrtm="newton_schulz"`` replaces the eigh (slow on TPU) with
+    needed.  ``sqrtm="newton_schulz"`` replaces the eigh with
     the matmul-only Newton-Schulz iteration for
-    sqrtm(Sigma_half^2 + 4 eta Sigma_half) — pure MXU work; the +2 eta I
+    sqrtm(Sigma_half^2 + 4 eta Sigma_half) — matmuls only; the +2 eta I
     term keeps the prox eigenvalues >= eta, so the iteration's small
     approximation error cannot break positive-definiteness.
     """
@@ -409,10 +411,16 @@ class FisherMinBatchMatch(MeasureSpaceAlgorithm):
 
         from ..parallel.mesh import shard_axis0
 
+        # Every product of the update runs at full float32 precision: the
+        # batch-size schedule lam = d n / t amplifies rounding in the draw
+        # and in the factors by up to lam (d n at step 1), and at a GPU's
+        # default TF32 matmuls the updated location moved ~10% off the
+        # float32 result at d=256, n=32 (PERF.md, bring-up findings).
+        mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
         mu = q.location
         C = q.tril_scale()  # cholesky factor of the current sigma
         u = shard_axis0(q.base.sample(step_key, (n, d), mu.dtype), self.mc_axis)
-        z = shard_axis0(u @ C.T + mu, self.mc_axis)
+        z = shard_axis0(mm(u, C.T) + mu, self.mc_axis)
 
         from ..core.problem import log_density_and_grad
 
@@ -421,7 +429,7 @@ class FisherMinBatchMatch(MeasureSpaceAlgorithm):
         )(z)
         logpi_avg = jnp.mean(logpi)
         # F = E || -u - C^T grad ||^2 (reference derivation :101-110)
-        fisher = jnp.sum(jnp.square(-u - grads @ C)) / n
+        fisher = jnp.sum(jnp.square(-u - mm(grads, C))) / n
 
         zbar = jnp.mean(z, axis=0)
         gbar = jnp.mean(grads, axis=0)
@@ -447,22 +455,22 @@ class FisherMinBatchMatch(MeasureSpaceAlgorithm):
             C, E, left_side=True, lower=True
         )  # C^-1 E, (d, k)
         P1, s1, _ = jnp.linalg.svd(Et, full_matrices=False)
-        F = C + (C @ P1) * (jnp.sqrt(1.0 + jnp.square(s1)) - 1.0) @ P1.T
+        F = C + mm(mm(C, P1) * (jnp.sqrt(1.0 + jnp.square(s1)) - 1.0), P1.T)
 
         # M^{1/2} with M = 2 (I + sqrt(I + 4 F^T U F))^-1:
         # F^T G = P2 diag(s2) Q2^T  =>  sqrt(I + 4 T) = I + P2 (r2 - 1) P2^T,
         # M^{1/2} = I - P2 (1 - sqrt(2/(1+r2))) P2^T,  r2 = sqrt(1 + 4 s2^2).
-        B = F.T @ G  # (d, k)
+        B = mm(F.T, G)  # (d, k)
         P2, s2, _ = jnp.linalg.svd(B, full_matrices=False)
         r2 = jnp.sqrt(1.0 + 4.0 * jnp.square(s2))
-        F_new = F - (F @ P2) * (1.0 - jnp.sqrt(2.0 / (1.0 + r2))) @ P2.T
+        F_new = F - mm(mm(F, P2) * (1.0 - jnp.sqrt(2.0 / (1.0 + r2))), P2.T)
 
         # sigma_new = F_new F_new^T, applied as an operator for the mean step
         mu_new = (
-            mu + lam * (F_new @ (F_new.T @ gbar) + zbar)
+            mu + lam * (mm(F_new, mm(F_new.T, gbar)) + zbar)
         ) / (1.0 + lam)
 
-        scale_new = jnp.linalg.cholesky(_symmetrize(F_new @ F_new.T))
+        scale_new = jnp.linalg.cholesky(_symmetrize(mm(F_new, F_new.T)))
         q_new = q.replace(location=mu_new, scale=scale_new)
 
         # BaM logs the entropy of the *pre-update* q (reference :157).

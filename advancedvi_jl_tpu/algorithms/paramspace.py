@@ -1,6 +1,6 @@
 """Parameter-space SGD algorithms (ADVI / proximal ADVI / BBVI).
 
-TPU-native redesign of the shared ``ParamSpaceSGD`` machinery
+Redesign of the shared ``ParamSpaceSGD`` machinery
 (reference: src/algorithms/common.jl:7-120 and constructors.jl).  The whole
 step body — gradient estimate, optimizer update, operator projection, Polyak
 averaging — is ONE pure function over pytrees, jitted (and `lax.scan`-able)

@@ -10,14 +10,14 @@ tens of gradient evaluations — orders of magnitude fewer than SGD-based VI —
 which also makes it the natural warm start for ADVI / the measure-space
 algorithms.
 
-TPU-native design: ONE jitted program. The optimizer loop is a lax.scan over
+Design: ONE jitted program. The optimizer loop is a lax.scan over
 optax's pure L-BFGS (zoom linesearch included); curvature pairs come from
 the collected trajectory (s_t = theta_{t+1}-theta_t, y_t = g_{t+1}-g_t); the
 per-iterate inverse Hessian is the dense BFGS recursion over a static
 m-window (PSD by construction from H0 = alpha I when s.y > 0, with damped
 skipping otherwise), evaluated for ALL T iterates as one vmapped batch of
 (d, d) updates + batched Cholesky + batched K-sample ELBOs — batched
-small-matrix MXU work, the same shape as the measure-space algorithms.
+small-matrix matmul work, the same shape as the measure-space algorithms.
 
 Multi-path Pathfinder = vmap over jittered starts; draws are pooled with
 self-normalized importance weights and checked with the PSIS k-hat

@@ -2,7 +2,7 @@
 
 The reference's ``LogDensityProblems`` protocol accepts ANY Julia callable,
 including ones no AD backend can differentiate (capability order 0) or ones
-carrying their own gradient oracle (order 1).  The TPU-native equivalent
+carrying their own gradient oracle (order 1).  The equivalent
 bridges arbitrary Python/C++/numpy code into the jitted graph with
 ``jax.pure_callback``:
 

@@ -1,6 +1,6 @@
 """Factorized targets: the PPL-bridge analogue with subsampling for free.
 
-TPU-native redesign of the reference's DynamicPPL extension
+Redesign of the reference's DynamicPPL extension
 (reference: ext/AdvancedVIDynamicPPLExt.jl:1-211).  The extension's job is to
 expose a PPL model as a weighted log-joint
 

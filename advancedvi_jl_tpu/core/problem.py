@@ -1,11 +1,11 @@
-"""Target log-density protocol (TPU-native analogue of LogDensityProblems).
+"""Target log-density protocol (analogue of LogDensityProblems).
 
 The reference consumes targets through the ``LogDensityProblems`` protocol:
 ``logdensity``, ``logdensity_and_gradient``, ``logdensity_gradient_and_hessian``,
 ``dimension``, ``capabilities`` (reference: src/AdvancedVI.jl layer L0, and the
 MixedAD wrapper at src/mixedad_logdensity.jl:9-34).
 
-TPU-native design: a target is any pytree object exposing
+Design: a target is any pytree object exposing
 
 - ``log_density(theta) -> scalar``   (must be jax-traceable)
 - ``dim`` property
@@ -21,7 +21,7 @@ There is exactly one AD (JAX), so the reference's five-backend AD-glue layer
 (src/AdvancedVI.jl:27-111 + ext/AdvancedVI{Enzyme,Mooncake,ReverseDiff}Ext.jl)
 collapses to this file: targets that bring their own gradient oracle are
 wrapped with ``jax.custom_vjp`` (`CustomGradTarget`), which is the single
-TPU-native equivalent of ``MixedADLogDensityProblem`` + its three backend
+Equivalent of ``MixedADLogDensityProblem`` + its three backend
 extensions.
 """
 
@@ -106,7 +106,7 @@ def validate_pytree_target(prob: Any) -> None:
 def subsample(prob_or_q: Any, indices: jax.Array) -> Any:
     """Restrict a target (or an amortized q) to a minibatch.
 
-    TPU-native analogue of ``AdvancedVI.subsample`` (reference:
+    Analogue of ``AdvancedVI.subsample`` (reference:
     src/AdvancedVI.jl:303-319).  The returned object must have the *same pytree
     structure family* for all batches (static shapes for XLA) and must rescale
     the likelihood by ``n_data / batch_size`` to stay an unbiased estimator of

@@ -1,7 +1,7 @@
 """Pytree dataclass infrastructure.
 
 The reference library threads mutable Julia structs through its protocol
-(`src/AdvancedVI.jl:2-383`).  The TPU-native equivalent is immutable pytree
+(`src/AdvancedVI.jl:2-383`).  The equivalent is immutable pytree
 dataclasses: every family, optimizer state, and algorithm state is a pytree so
 it can flow through `jax.jit`, `jax.grad`, `lax.scan`, and `jax.sharding`
 without any flatten/restructure machinery (the reference needs
@@ -55,7 +55,7 @@ def replace(obj: _T, **changes: Any) -> _T:
 def tree_stop_gradient(tree: _T) -> _T:
     """Detach every leaf of a pytree from the AD graph.
 
-    TPU-native analogue of the reference's ``q_stop = restructure(params)``
+    Analogue of the reference's ``q_stop = restructure(params)``
     detached copy used for sticking-the-landing entropy
     (reference: src/algorithms/repgradelbo.jl:151-177).
     """

@@ -159,7 +159,7 @@ class Ordered(Transform):
 class Stacked(Transform):
     """Apply different transforms to contiguous slices of the vector.
 
-    TPU-native analogue of ``Bijectors.Stacked`` used in the reference's
+    Analogue of ``Bijectors.Stacked`` used in the reference's
     flagship logistic-regression example (reference: README.md:91-104), e.g.
     identity on regression weights, exp on the positive scale parameter.
     Slices are static, so XLA sees fixed gathers and fuses everything.
@@ -173,9 +173,7 @@ class Stacked(Transform):
         ldj = jnp.zeros((), dtype=x.dtype)
         offset = 0
         for t, n in zip(self.transforms, self.sizes):
-            # offsets are Python ints: a static slice (not dynamic_slice)
-            # keeps the op Mosaic-lowerable when this runs INSIDE a fused
-            # Pallas kernel via an AD-derived model spec (fused_advi.ad_spec)
+            # offsets are Python ints: a static slice, not a dynamic_slice
             y, l = t.forward_and_ldj(x[offset : offset + n])
             pieces.append(y)
             ldj = ldj + l
@@ -233,7 +231,7 @@ class TransformedTarget:
     """Change-of-variables wrapper: unconstrained-space log density.
 
     ``log_density(x) = prob.log_density(T(x)) + log|det J_T(x)|`` — the
-    TPU-native analogue of the reference's user-side
+    Analogue of the reference's user-side
     ``TransformedLogDensityProblem`` (reference: README.md:105-140), but built
     in so the Jacobian term fuses into the jitted ELBO path.
     """

@@ -8,8 +8,8 @@ size k, each with its own dense Cholesky factor.  Hierarchical posteriors
 get full within-block covariance at O(B k^2) parameters instead of
 O((Bk)^2).
 
-TPU-native shape: all block ops are BATCHED small-matrix ops — sampling is
-one `(B, k, k) x (n, B, k)` einsum (MXU), `log_prob` a vmapped triangular
+Shape: all block ops are BATCHED small-matrix ops — sampling is
+one `(B, k, k) x (n, B, k)` einsum, `log_prob` a vmapped triangular
 solve — exactly the layout XLA tiles well.  The block axis is also a mesh
 axis candidate (`block_axis=`): blocks shard like experts, with no
 cross-block communication on the sampling path.
@@ -66,7 +66,7 @@ class BlockDiagLocationScale:
         B, k = self.n_blocks, self.block_dim
         u = self.base.sample(key, (n_samples, B, k), self.location.dtype)
         C = self.tril_scales()
-        # (B, k, k) x (n, B, k) -> (n, B, k): one batched MXU matmul.
+        # (B, k, k) x (n, B, k) -> (n, B, k): one batched matmul.
         z = jnp.einsum("bij,nbj->nbi", C, u)
         return (
             z.reshape(n_samples, B * k) + self.location,

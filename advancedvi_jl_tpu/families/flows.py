@@ -198,7 +198,7 @@ class CouplingFlowFamily:
     s is tanh-bounded (|s| <= s_cap) so both directions stay float32-stable;
     conditioner output weights init to zero -> the flow starts at identity.
     Every layer is one (n, d) x (d, h) + (n, h) x (h, 2d) matmul pair —
-    MXU work batched over samples, scanned over layers on-device.
+    Matmul work batched over samples, scanned over layers on-device.
     """
 
     base_location: jax.Array  # (d,)

@@ -1,6 +1,6 @@
 """Location-scale variational families (mean-field and full-rank).
 
-TPU-native redesign of the reference's ``MvLocationScale``
+Redesign of the reference's ``MvLocationScale``
 (reference: src/families/location_scale.jl:15-141).  Differences by design:
 
 - The family *is* the parameter pytree.  The reference needs
@@ -11,9 +11,9 @@ TPU-native redesign of the reference's ``MvLocationScale``
   reference stores a ``Diagonal`` matrix and special-cases its flattening).
 - The full-rank scale is stored as a dense (d, d) array interpreted as its
   lower triangle; every use applies ``jnp.tril`` so the strict upper triangle
-  is inert (zero gradient, never read) and shapes stay MXU-friendly.
-- ``sample`` is batched: one ``(n, d)`` base draw and a single matmul on the
-  MXU, instead of the reference's per-sample column loop.
+  is inert (zero gradient, never read) and shapes stay matmul-friendly.
+- ``sample`` is batched: one ``(n, d)`` base draw and a single matmul (one
+  GEMM), instead of the reference's per-sample column loop.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def _solve_lower(C: jax.Array, B: jax.Array, trans: bool) -> jax.Array:
     Routes through the native C++ XLA-FFI kernel (ops/cpp/ffi_trisolve.cc,
     measured 3.7x over XLA's solve at the VI d-range) when the backend is
     CPU, dtypes are f32/f64, and no mesh is active; XLA's partitionable
-    ``triangular_solve`` otherwise (TPU, sharded, or exotic dtypes).
+    ``triangular_solve`` otherwise (GPU, sharded, or exotic dtypes).
     """
     from ..ops.native_ffi import trisolve, use_native_trisolve
 
@@ -43,7 +43,7 @@ def _solve_lower(C: jax.Array, B: jax.Array, trans: bool) -> jax.Array:
     return solve_triangular(C, B, lower=True, trans=1 if trans else 0)
 
 
-_SOLVE_MODES = ("solve", "inverse", "pallas")
+_SOLVE_MODES = ("solve", "inverse")
 
 
 def _check_solve_mode(q) -> None:
@@ -52,24 +52,6 @@ def _check_solve_mode(q) -> None:
     if q.solve_mode not in _SOLVE_MODES:
         raise ValueError(
             f"solve_mode must be one of {_SOLVE_MODES}, got {q.solve_mode!r}"
-        )
-    if q.solve_mode == "pallas" and q.location.dtype != jnp.float32:
-        raise ValueError(
-            "solve_mode='pallas' requires float32 parameters "
-            f"(the kernel and its VJP are f32), got {q.location.dtype}"
-        )
-
-
-def _check_pallas_ok(q) -> None:
-    if not isinstance(q.base, Normal):
-        raise ValueError(
-            "sampler='pallas' requires the Normal base (Box-Muller kernel); "
-            f"got {type(q.base).__name__}"
-        )
-    if q.location.dtype != jnp.float32:
-        raise ValueError(
-            f"sampler='pallas' requires float32 parameters, got "
-            f"{q.location.dtype}"
         )
 
 
@@ -84,7 +66,6 @@ class MeanFieldLocationScale:
     location: jax.Array  # (d,)
     scale_diag: jax.Array  # (d,)
     base: Any = static_field(default=Normal())
-    sampler: str = static_field(default="xla")
 
     @property
     def dim(self) -> int:
@@ -94,16 +75,6 @@ class MeanFieldLocationScale:
         return self.sample_with_base(key, n_samples)[0]
 
     def sample_with_base(self, key: jax.Array, n_samples: int):
-        if self.sampler == "pallas":
-            _check_pallas_ok(self)
-            from ..ops.pallas.location_scale_kernels import (
-                key_to_seed,
-                meanfield_sample,
-            )
-
-            return meanfield_sample(
-                key_to_seed(key), self.location, self.scale_diag, n_samples
-            )
         u = self.base.sample(key, (n_samples, self.dim), self.location.dtype)
         return u * self.scale_diag + self.location, u
 
@@ -152,45 +123,33 @@ class FullRankLocationScale:
     location: jax.Array  # (d,)
     scale: jax.Array  # (d, d), lower-triangular by convention
     base: Any = static_field(default=Normal())
-    sampler: str = static_field(default="xla")
     # Tensor parallelism for very large d (SURVEY.md §2.7 TP row): mesh axis
     # to shard the scale's ROWS over.  The (n, d) x (d, d) sampling matmul
     # then computes d/n_tp output columns per device; GSPMD keeps the base
     # draw replicated and partitions z column-wise — no collective needed on
     # the forward sampling path (each output column owns its row of C).
     tp_axis: Any = static_field(default=None)
-    # Optional MXU-native precision for the (n, d) x (d, d) sampling matmul
+    # Optional reduced precision for the (n, d) x (d, d) sampling matmul
     # ("bfloat16"): operands cast down, f32 accumulation via
-    # preferred_element_type — the standard TPU mixed-precision contract.
-    # Parameters, solves, and densities stay in the parameter dtype; only
-    # the draw's affine map quantizes (~3 decimal digits), which perturbs
-    # each z by O(1e-3)·||C|| without biasing the estimator's expectation
-    # over u.  Measured: ELBO trajectory unchanged at d=1024 (BENCH_NOTES
-    # "MFU" section); ~2x on the FLOP-bound full-rank configs.
+    # preferred_element_type (tensor-core mixed precision).  Parameters,
+    # solves, and densities stay in the parameter dtype; only the draw's
+    # affine map quantizes (~3 decimal digits), which perturbs each z by
+    # O(1e-3)·||C|| without biasing the estimator's expectation over u.
     compute_dtype: Any = static_field(default=None)
     # How to apply C^{-1} / C^{-T} on the hot paths (log_prob whitening, STL
-    # entropy backward).  "solve": XLA triangular_solve — sequential blocked
-    # substitution, best worst-case rounding.  "inverse": level-parallel
-    # blocked triangular inverse (ops/trinv.py) computed per call, then a
-    # plain MXU matmul — O(log d) sequential depth instead of O(d/128).
-    # Measured a wash at d=1024/n=256 on v5e (gather overhead offsets the
-    # parallelism; BENCH_NOTES "Round 3"); opt-in for shapes where many rhs
-    # amortize the inverse's fixed cost.  "pallas": single-kernel
-    # right-looking blocked solve (ops/pallas/trisolve_kernels.py), C
-    # streamed from HBM, custom VJP — the XLA solve is 55-59% of the
-    # FLOP-bound ADVI step and this removes its dispatch/dependency chain
-    # (BENCH_NOTES "Round 3").  Requires d % 128 == 0 (falls back to
-    # "solve" otherwise) and a single device (do not combine with mc/tp
-    # mesh axes: GSPMD cannot partition the custom call).
+    # entropy backward).  "solve": XLA triangular_solve (cuBLAS trsm on a
+    # GPU) — blocked substitution, best worst-case rounding.  "inverse":
+    # level-parallel blocked triangular inverse (ops/trinv.py) computed per
+    # call, then a plain matmul — O(log d) sequential depth instead of
+    # O(d/block).  Both are timed on the card in PERF.md.
     solve_mode: str = static_field(default="solve")
     # Memory layout of ``scale``.  "dense": (d, d) array, lower triangle
     # meaningful (the default; required by tp_axis row sharding and the
     # measure-space algorithms, which rebuild dense factors each step).
-    # "packed": the (d(d+1)/2,) lower triangle row-major (ops/packing.py) —
-    # halves the HBM traffic of every elementwise pass over the parameters
-    # (optimizer, operators, averaging), which is what bounds the large-d
-    # step (~700 MB/step at d=2048, BENCH_NOTES "Round 3"); the dense
-    # factor is materialized only for the sampling matmul and the solves.
+    # "packed": the lower triangle in blocked packed form (ops/packing.py)
+    # — halves the memory traffic of every elementwise pass over the
+    # parameters (optimizer, operators, averaging); the dense factor is
+    # materialized only for the sampling matmul and the solves.
     layout: str = static_field(default="dense")
 
     @property
@@ -243,19 +202,9 @@ class FullRankLocationScale:
         return self.sample_with_base(key, n_samples)[0]
 
     def sample_with_base(self, key: jax.Array, n_samples: int):
-        if self.sampler == "pallas":
-            _check_pallas_ok(self)
-            from ..ops.pallas.location_scale_kernels import (
-                fullrank_sample,
-                key_to_seed,
-            )
-
-            return fullrank_sample(
-                key_to_seed(key), self.location, self.tril_scale(), n_samples
-            )
         u = self.base.sample(key, (n_samples, self.dim), self.location.dtype)
         C = self.tril_scale()
-        # (n, d) @ (d, d)^T : one MXU matmul for the whole batch.
+        # (n, d) @ (d, d)^T : one matmul for the whole batch.
         if self.compute_dtype is not None:
             cd = jnp.dtype(self.compute_dtype)
             z = (
@@ -279,10 +228,6 @@ class FullRankLocationScale:
         if self.solve_mode == "inverse":
             T = self._tril_inverse(C)
             u = diff @ T.T
-        elif self.solve_mode == "pallas" and diff.ndim == 2:
-            from ..ops.pallas.trisolve_kernels import vdiv_ct
-
-            u = vdiv_ct(C, diff)
         elif diff.ndim == 1:
             u = _solve_lower(C, diff[:, None], trans=False)[:, 0]
         else:
@@ -303,15 +248,11 @@ class FullRankLocationScale:
     def apply_inv_scale_T(self, V: jax.Array) -> jax.Array:
         """C^{-T} applied to each row of (n, d) V: one transposed triangular
         solve (the only solve left on the fast STL path) — or, with
-        solve_mode="inverse", one blocked inverse + one MXU matmul."""
+        solve_mode="inverse", one blocked inverse + one matmul."""
         _check_solve_mode(self)
         C = self.tril_scale()
         if self.solve_mode == "inverse":
             return V @ self._tril_inverse(C)
-        if self.solve_mode == "pallas" and V.ndim == 2:
-            from ..ops.pallas.trisolve_kernels import vdiv_c
-
-            return vdiv_c(C, V)
         return _solve_lower(C, V.T, trans=True).T
 
     def _tril_inverse(self, C: jax.Array) -> jax.Array:
@@ -342,14 +283,8 @@ class FullRankLocationScale:
 def MeanFieldGaussian(
     location: jax.Array,
     scale_diag: jax.Array | None = None,
-    sampler: str = "xla",
 ) -> MeanFieldLocationScale:
-    """Gaussian with diagonal covariance (reference: location_scale.jl:124-141).
-
-    ``sampler="pallas"`` switches to the fused on-chip-RNG TPU kernel
-    (ops/pallas/location_scale_kernels.py) — a different, still-deterministic
-    random stream; keep "xla" when exact jax.random parity matters.
-    """
+    """Gaussian with diagonal covariance (reference: location_scale.jl:124-141)."""
     location = jnp.asarray(location)
     if scale_diag is None:
         scale_diag = jnp.ones_like(location)
@@ -357,14 +292,12 @@ def MeanFieldGaussian(
         location=location,
         scale_diag=jnp.asarray(scale_diag),
         base=Normal(),
-        sampler=sampler,
     )
 
 
 def FullRankGaussian(
     location: jax.Array,
     scale: jax.Array | None = None,
-    sampler: str = "xla",
     compute_dtype: Any = None,
     solve_mode: str = "solve",
     layout: str = "dense",
@@ -389,7 +322,6 @@ def FullRankGaussian(
         location=location,
         scale=scale,
         base=Normal(),
-        sampler=sampler,
         compute_dtype=compute_dtype,
         solve_mode=solve_mode,
         layout=layout,

@@ -1,6 +1,6 @@
 """Diagonal-plus-low-rank location-scale family.
 
-TPU-native redesign of ``MvLocationScaleLowRank``
+Redesign of ``MvLocationScaleLowRank``
 (reference: src/families/location_scale_low_rank.jl:18-136): covariance
 ``sigma^2_base * (D^2 + U U^T)`` with ``D = diag(scale_diag)`` (d,) and factors
 ``U`` (d, r).  Sampling is ``z = D u1 + U u2 + m`` with one (n, r) x (r, d)
@@ -31,8 +31,8 @@ from ..core.pytree import pytree_dataclass, static_field
 from .base import Normal
 
 # Dense-cholesky log_prob/entropy below this dimension (stability); Woodbury
-# above it (speed). At d=512 one (d, d) cholesky is ~us on TPU, so the dense
-# path costs nothing for the d-range where VI families are full pytrees.
+# above it (speed): one (d, d) cholesky per step is cheap next to the
+# sampling work for the d-range where VI families are full pytrees.
 _DENSE_LOGPROB_MAX_DIM = 512
 
 
@@ -42,7 +42,6 @@ class LowRankLocationScale:
     scale_diag: jax.Array  # (d,)
     scale_factors: jax.Array  # (d, r)
     base: Any = static_field(default=Normal())
-    sampler: str = static_field(default="xla")
 
     @property
     def dim(self) -> int:
@@ -53,23 +52,6 @@ class LowRankLocationScale:
         return self.scale_factors.shape[-1]
 
     def sample(self, key: jax.Array, n_samples: int) -> jax.Array:
-        if self.sampler == "pallas":
-            from .location_scale import _check_pallas_ok
-
-            _check_pallas_ok(self)
-            from ..ops.pallas.location_scale_kernels import (
-                key_to_seed,
-                lowrank_sample,
-            )
-
-            z, _, _ = lowrank_sample(
-                key_to_seed(key),
-                self.location,
-                self.scale_diag,
-                self.scale_factors,
-                n_samples,
-            )
-            return z
         k1, k2 = jax.random.split(key)
         dtype = self.location.dtype
         u_diag = self.base.sample(k1, (n_samples, self.dim), dtype)

@@ -140,7 +140,7 @@ class MixtureFullRank:
         u = jax.random.normal(
             key, (K, n_per_component, d), self.locations.dtype
         )
-        # z_k = u_k @ C_k^T + m_k, batched over components (MXU batch matmul)
+        # z_k = u_k @ C_k^T + m_k, batched over components (batched matmul)
         return (
             jnp.einsum("knd,ked->kne", u, self._tril())
             + self.locations[:, None, :]

@@ -1,9 +1,9 @@
 """Bayesian neural-network posterior (BASELINE config #5).
 
 A small MLP regression posterior: weights ~ N(0, 1), y ~ N(f_w(x), sigma^2).
-theta is the flattened weight vector; the forward pass is two MXU matmuls
+theta is the flattened weight vector; the forward pass is two matmuls
 batched over the whole dataset, so a mean-field ADVI step over this target is
-matmul-dominated — the workload where TPU sample-sharding pays off.
+matmul-dominated — the workload where sample-sharding pays off.
 Supports minibatch subsampling with likelihood rescaling.
 """
 
@@ -27,12 +27,12 @@ class BayesianMLP:
     hidden: int = static_field(default=32)
     noise_scale: float = static_field(default=0.1)
     data_axis: Optional[str] = static_field(default=None)
-    # Optional MXU-native matmul precision ("bfloat16"): inputs cast down,
+    # Optional reduced matmul precision ("bfloat16"): inputs cast down,
     # accumulation stays float32 (preferred_element_type). The posterior
     # parameters, prior, and likelihood reduction remain float32 — only the
-    # forward-pass contractions run at bf16, where the MXU's native input
-    # format doubles matmul throughput. Opt in when the likelihood is
-    # matmul-dominated and ~3-digit predictions are acceptable.
+    # forward-pass contractions run at bf16, the tensor cores' fastest
+    # input format. Opt in when the likelihood is matmul-dominated and
+    # ~3-digit predictions are acceptable.
     compute_dtype: Optional[str] = static_field(default=None)
 
     @property
@@ -75,7 +75,7 @@ class BayesianMLP:
                 )
                 + b2
             )
-        hcore = jnp.tanh(X @ W1 + b1)  # (n, h) — MXU matmul
+        hcore = jnp.tanh(X @ W1 + b1)  # (n, h) — one matmul
         return hcore @ W2 + b2  # (n,)
 
     def log_density(self, theta: jax.Array) -> jax.Array:

@@ -10,7 +10,7 @@ theta = [beta (d), sigma (1)]; sigma > 0 so the unconstrained-space target is
 ``LogReg(...).unconstrained()`` = TransformedTarget with a Stacked(Identity_d,
 Exp_1) bijector, exactly the reference's Bijectors.Stacked pattern.
 
-TPU-native: the likelihood is one (n, d) x (d,) matvec on the MXU plus fused
+Design: the likelihood is one (n, d) x (d,) matvec plus fused
 elementwise log-sigmoid terms; subsampling gathers minibatch rows with a
 static shape and rescales the likelihood by n/batch (the reference's
 ``subsample`` contract, src/AdvancedVI.jl:303-319).  Under a device mesh the
@@ -67,11 +67,11 @@ class LogReg:
             - 0.5 * math.log(2.0 * math.pi)
         )
 
-        logits = self.X @ beta  # one MXU matvec over the whole (mini)batch
+        logits = self.X @ beta  # one matvec over the whole (mini)batch
         from ..parallel.mesh import shard_axis0
 
         logits = shard_axis0(logits, self.data_axis)
-        # Bernoulli-logit: y * l - softplus(l), fused elementwise on the VPU.
+        # Bernoulli-logit: y * l - softplus(l), one elementwise fusion.
         loglike = jnp.sum(self.y * logits - jax.nn.softplus(logits))
         return self.likeadj * loglike + logprior_beta + logprior_sigma
 

@@ -1,6 +1,6 @@
 """Analytic Gaussian test targets with ground truth.
 
-TPU-native analogues of the reference test fixtures ``TestNormal`` /
+Analogues of the reference test fixtures ``TestNormal`` /
 ``normal_fullrank`` / ``normal_meanfield`` (reference: test/models/normal.jl:2-75):
 a d-dimensional Gaussian whose true posterior mean/scale are known, presented
 at a chosen capability order so the gradient/Hessian estimator paths can be
@@ -24,8 +24,8 @@ class NormalTarget:
 
     ``inv_scale_tril``: optional precomputed L^{-1}.  L is a CONSTANT of the
     target, so the per-evaluation triangular solve can be traded for one
-    matmul — the TPU-first choice for hot loops (a (n, d) x (d, d) matmul
-    rides the MXU at full rate; a batched substitution does not).  Built by
+    matmul — for hot loops a (n, d) x (d, d) matmul runs at the GEMM rate,
+    where a batched substitution is a chain of dependent steps.  Built by
     :meth:`solve_free`; both forms are the same density to f32 round-off.
     """
 

@@ -1,6 +1,6 @@
 """Subsampled-normals test target with analytic posterior.
 
-TPU-native analogue of the reference fixture ``SubsampledNormals``
+Analogue of the reference fixture ``SubsampledNormals``
 (reference: test/models/subsamplednormals.jl): a 1-dim product of n unit-scale
 Normal factors N(mu_i, 1) in x — an unnormalized "posterior" whose normalized
 density is N(mean(mu), 1/n).  ``subsample`` keeps a minibatch of factors and

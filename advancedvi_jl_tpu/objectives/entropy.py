@@ -2,7 +2,7 @@
 
 Five strategies that differ only in how the entropy term H(q) enters the AD
 graph (reference: src/algorithms/entropy.jl:11-90).  `q_stop` is the same
-family with gradients stopped (TPU-native: ``jax.lax.stop_gradient`` on the
+family with gradients stopped (``jax.lax.stop_gradient`` on the
 whole pytree), replacing the reference's detached ``restructure(params)``.
 
 - ClosedFormEntropy:        entropy(q), differentiated.

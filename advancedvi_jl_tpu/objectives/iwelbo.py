@@ -25,7 +25,7 @@ Gradients:
   of the plain estimator as k grows (Rainforth et al. 2018) — measured in
   tests/test_iwelbo.py.
 
-TPU notes: the k importance samples are one batched draw + one vmapped
+Design notes: the k importance samples are one batched draw + one vmapped
 log-density — the same fused-program shape as RepGradELBO — and shard over
 the "mc" mesh axis (the logsumexp reduces with a psum).
 """

@@ -1,12 +1,12 @@
 """Reparameterization-gradient ELBO (the flagship hot path).
 
-TPU-native redesign of ``RepGradELBO``
+Redesign of ``RepGradELBO``
 (reference: src/algorithms/repgradelbo.jl:21-177).  The reference's per-step
 pipeline — restructure params, draw samples one column at a time, loop the
 model log-density over columns, AD through a prepared tape — becomes ONE pure
 jittable function:
 
-    sample (batched, one MXU matmul) -> vmap log_density -> entropy -> -elbo
+    sample (batched, one matmul) -> vmap log_density -> entropy -> -elbo
 
 differentiated with ``jax.grad``.  The Monte-Carlo sample axis is the
 shardable axis: under a device mesh the (n_samples, d) draw is annotated with

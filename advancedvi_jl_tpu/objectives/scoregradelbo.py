@@ -1,6 +1,6 @@
 """Score-function (REINFORCE) ELBO gradient via the VarGrad objective.
 
-TPU-native redesign of ``ScoreGradELBO``
+Redesign of ``ScoreGradELBO``
 (reference: src/algorithms/scoregradelbo.jl:15-117).  VarGrad / leave-one-out
 control variate (Richter et al. 2020): draw samples with stopped gradients,
 evaluate the target log-density with stopped gradients, then differentiate

@@ -1,6 +1,6 @@
 """Subsampled objective decorator (doubly-stochastic VI).
 
-TPU-native redesign of ``SubsampledObjective``
+Redesign of ``SubsampledObjective``
 (reference: src/algorithms/subsampledobjective.jl:10-90).  The reference
 detours each gradient step through host-side iterator peeling, problem
 swapping via ``set_objective_state_problem``, and re-destructuring; here the

@@ -3,12 +3,10 @@
 // This is the C++ XLA custom-call registration scaffolding SURVEY.md §2.8.4
 // prescribes, hosting the batched triangular solve of §2.8.2 (the full-rank
 // log-density hot path, reference: src/families/location_scale.jl:59-63
-// `scale \ (z - location)`).  Registered for the CPU backend — on TPU
-// backends XLA FFI custom calls execute on the HOST (a documented platform
-// property, see SURVEY_PARITY.md §2.8.4), so the TPU compute path keeps the
-// XLA `triangular_solve` / Pallas kernels; this library is the native path
-// for CPU meshes (tests, multi-process CPU clusters) and the scaffolding a
-// future inline-TPU custom call plugs into.
+// `scale \ (z - location)`).  Registered for the CPU backend only: on a
+// GPU backend the solves stay on XLA's `triangular_solve` (cuBLAS trsm);
+// this library is the native path for CPU meshes (tests, multi-process CPU
+// clusters).
 //
 // Layout: the right-hand sides live in (d, n) — row j holds coordinate j of
 // all n samples — so forward/backward substitution streams unit-stride

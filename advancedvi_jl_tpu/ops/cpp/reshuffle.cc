@@ -2,8 +2,8 @@
 //
 // The reference has no data loader at all — its datasets are in-memory Julia
 // vectors shuffled with Random.shuffle (reference: src/reshuffling.jl:32-36).
-// On TPU the device-side schedule (subsampling.py) covers datasets that fit
-// in HBM; THIS library is the native path for datasets that do not: epoch
+// The device-side schedule (subsampling.py) covers datasets that fit in
+// device memory; THIS library is the native path for datasets that do not: epoch
 // permutations and threaded minibatch row-gathers run on the host CPU off the
 // GIL, producing pinned staging buffers the runtime feeds to the device.
 //

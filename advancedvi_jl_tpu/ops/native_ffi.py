@@ -3,12 +3,10 @@
 The C++ home for the batched triangular solve (SURVEY.md §2.8.2/§2.8.4;
 reference hot path: src/families/location_scale.jl:59-63
 ``scale \\ (z - location)``).  The kernel lives in ops/cpp/ffi_trisolve.cc,
-compiled on first use against the XLA FFI headers bundled with jaxlib and
-registered with ``jax.ffi.register_ffi_target`` for the **CPU** platform:
-XLA FFI custom calls execute on the host for TPU backends, so the TPU
-compute path keeps XLA ``triangular_solve``/Pallas — this module is the
-native path for CPU meshes and the registration scaffolding an inline-TPU
-custom call would plug into.
+compiled on first use (ops/native_build.py) against the XLA FFI headers
+bundled with jaxlib and registered with ``jax.ffi.register_ffi_target`` for
+the **CPU** platform only: on a GPU backend the solves stay on XLA's
+``triangular_solve`` (cuBLAS trsm), and this module never engages.
 
 ``trisolve`` is differentiable (custom VJP re-uses the same kernel with the
 transposed system) and jit/vmap-safe on the CPU backend.
@@ -42,20 +40,17 @@ def _ensure_registered() -> bool:
         return True
     if _FAILED:
         return False
+    from .native_build import build_shared_library
+
     src = os.path.join(_src_dir(), "ffi_trisolve.cc")
-    out = os.path.join(_src_dir(), "libadviffi.so")
     try:
-        if not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src):
-            subprocess.run(
-                [
-                    "g++", "-O3", "-march=native", "-funroll-loops",
-                    "-std=c++17", "-shared",
-                    "-fPIC", "-I", jax.ffi.include_dir(),
-                    "-o", out, src, "-lpthread",
-                ],
-                check=True,
-                capture_output=True,
-            )
+        out = build_shared_library(
+            src,
+            [
+                "-O3", "-funroll-loops", "-std=c++17", "-shared", "-fPIC",
+                "-I", jax.ffi.include_dir(),
+            ],
+        )
         lib = ctypes.cdll.LoadLibrary(out)
         for name, sym in (
             ("advi_trisolve_f32", lib.AdviTrisolveF32),
@@ -157,7 +152,7 @@ def trisolve(L: jax.Array, B: jax.Array, *, trans: bool = False) -> jax.Array:
 
     Differentiable in L and B; jit-safe and vmap-able (sequential per-batch
     dispatch); CPU backend only (``ffi_available()``) — the targets are
-    registered for platform="cpu", so a TPU/GPU default backend gets a clear
+    registered for platform="cpu", so a GPU default backend gets a clear
     error here instead of an opaque lowering failure.
     """
     if L.ndim != 2 or B.ndim != 2 or L.shape[0] != L.shape[1]:

@@ -1,31 +1,28 @@
 """Tile-packed lower-triangular parameter layout (slice/concat only).
 
-Why this exists: the large-d full-rank VI step is HBM-bandwidth-bound, not
-MXU-bound — XLA's cost model reports ~700 MB accessed per step at d=2048
-(BENCH_NOTES "Round 3"), and the measured step time equals bytes/bandwidth.
-Most of that traffic is elementwise passes (Adam, ClipScale, Polyak
+Why this exists: much of the memory traffic of the large-d full-rank VI
+step is elementwise passes (Adam, ClipScale, Polyak
 averaging, tril masks) over the dense (d, d) scale whose strict upper
 triangle is inert by contract.  Packing the scale to the lower-triangular
 HALF of that buffer halves every one of those passes; the dense matrix is
 materialized only at the two points that genuinely need it (the sampling
 matmul and the triangular solve).
 
-Granularity matters on TPU: an element-level pack (row-major d(d+1)/2
-vector) needs d^2-sized gathers, which XLA lowers catastrophically on TPU —
-measured 27-77x SLOWDOWN and 6.7 GB/step accessed at d=1024 (BENCH_NOTES
-"Round 3").  This module therefore packs at 128x128 TILE granularity: the
+Granularity matters: an element-level pack (row-major d(d+1)/2 vector)
+needs d^2-sized gathers, which move far more bytes than the slices they
+replace.  This module therefore packs at 128x128 TILE granularity: the
 packed representation is the (T, 128, 128) array of the T = nb(nb+1)/2
 tiles of the (padded) matrix that intersect the lower triangle, in
 row-major tile order (tile (i, j), j <= i, lives at index i(i+1)/2 + j).
 Pack and unpack are pure static slices and concatenates — layout copies
 XLA executes at full bandwidth, with slice/pad adjoints (no gathers, no
 scatters, no custom VJPs).  Storage is d^2/2 + O(d·128): diagonal tiles
-keep their (inert, zero) upper-of-tile entries so every tile stays
-MXU-shaped.
+keep their (inert, zero) upper-of-tile entries so every tile stays a
+whole matmul tile.
 
 The reference has no analogue (its scale is a LowerTriangular view over
 dense memory, src/families/location_scale.jl:71-77, and its CPU step is
-never bandwidth-bound); this is a TPU-first layout decision.
+never bandwidth-bound).  Whether it pays on the GPU is open (PERF.md).
 """
 
 from __future__ import annotations
@@ -36,7 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-BLOCK = 128  # MXU/VPU tile edge
+BLOCK = 128  # tile edge
 
 
 def default_block(d: int) -> int:

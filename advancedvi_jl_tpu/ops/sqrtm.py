@@ -2,12 +2,12 @@
 
 XLA has no direct ``sqrtm`` op; the reference leans on LAPACK's
 ``sqrt(Hermitian(...))`` (reference: src/algorithms/klminwassfwdbwd.jl:110,
-fisherminbatchmatch.jl:153).  TPU-native implementations:
+fisherminbatchmatch.jl:153).  Implementations:
 
 - ``sqrtm_psd``: eigh-based — one batched symmetric eigendecomposition,
   eigenvalues clamped at zero.  Robust default for the small-d (d <= few
   thousand) matrices these algorithms manipulate.
-- ``sqrtm_newton_schulz``: matmul-only Newton–Schulz iteration (MXU-friendly,
+- ``sqrtm_newton_schulz``: matmul-only Newton–Schulz iteration (GEMMs only,
   no eigh) for very large d or half-precision pipelines.
 """
 
@@ -38,7 +38,7 @@ def sqrtm_newton_schulz(A: jax.Array, n_iter: int = 20) -> jax.Array:
     """Newton–Schulz iteration for the PSD square root (matmuls only).
 
     Converges quadratically when ||I - A/||A||_F|| < 1; we pre-scale by the
-    Frobenius norm.  All ops are (d, d) matmuls -> pure MXU work.
+    Frobenius norm.  All ops are (d, d) matmuls.
     """
     dtype = A.dtype
     d = A.shape[-1]

@@ -1,11 +1,10 @@
 """Level-parallel blocked triangular inverse (matmul-only above the base).
 
-Why: XLA's ``triangular_solve`` on TPU lowers to SEQUENTIAL blocked
-substitution — O(d/block) dependent steps whose per-step matmuls are too
-small to fill the MXU.  At the VI hot-path shapes (one (d, d) factor,
-n ~ 10^2 right-hand sides) the solve's wall-clock is dominated by that
-dependency chain, nearly independent of n (measured: halving n_samples
-changes step time by <1%, BENCH_NOTES "Step budget").
+Why: a triangular solve (XLA's ``triangular_solve``, cuBLAS trsm on a GPU)
+is blocked substitution — O(d/block) dependent steps whose per-step matmuls
+are small.  At the VI hot-path shapes (one (d, d) factor, n ~ 10^2
+right-hand sides) that dependency chain, not the arithmetic, can set the
+solve's wall-clock.
 
 This kernel restructures the computation as the classic divide-and-conquer
 inverse:
@@ -14,23 +13,19 @@ inverse:
 
 evaluated bottom-up: ONE batched 128x128 base inversion (all d/128 diagonal
 blocks in parallel), then log2(d/128) levels where every pair's off-diagonal
-correction -D^{-1} B A^{-1} is two batched (s, s) matmuls — MXU-shaped,
-independent across pairs, O(log d) sequential depth instead of O(d/128).
+correction -D^{-1} B A^{-1} is two batched (s, s) matmuls — independent
+across pairs, O(log d) sequential depth instead of O(d/128).
 Total ~2/3 d^3 FLOPs.
 
-Measured on v5e (BENCH_NOTES "Round 3"): a WASH on the full VI step at
-d=1024/n=256 (2422 vs 2419 steps/s) — the level-parallel matmuls do beat
-the substitution chain, but the tile gather/scatter passes that assemble
-each level eat exactly the win.  Kept as a tested opt-in
-(``FullRankLocationScale(solve_mode="inverse")``) because the crossover is
+An opt-in (``FullRankLocationScale(solve_mode="inverse")``); its full STL
+step time against the solve's on the H100 is in PERF.md.  The crossover is
 shape-dependent (more rhs amortize the inverse's fixed cost; substitution
 wins worst-case rounding on ill-conditioned factors).  Parity (values,
 gradients, training trajectories) is pinned in tests/test_trinv.py.
 Differentiable by construction (solves + matmuls).
 
 No reference counterpart (the reference delegates to LAPACK trsm,
-reference: src/families/location_scale.jl:59-63); this is a TPU-first
-redesign of that kernel slot.
+reference: src/families/location_scale.jl:59-63).
 """
 
 from __future__ import annotations
@@ -39,7 +34,7 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import solve_triangular
 
-_BASE = 128  # MXU tile edge: base-case inversion size
+_BASE = 128  # tile edge: base-case inversion size
 
 
 def _is_pow2(x: int) -> bool:

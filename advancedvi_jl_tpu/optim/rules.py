@@ -1,6 +1,6 @@
 """Parameter-free step-size rules as optax gradient transformations.
 
-TPU-native equivalents of the reference's ``Optimisers.jl`` rules
+Equivalents of the reference's ``Optimisers.jl`` rules
 (reference: src/optimization/rules.jl):
 
 - DoWG (:17-34): distance-over-weighted-gradients,  eta = r^2 / sqrt(v),
@@ -176,7 +176,7 @@ def descent(lr: float) -> optax.GradientTransformation:
 def stepsize_from_opt_state(opt_state) -> Optional[jax.Array]:
     """Extract the current scalar step size from an optimizer state.
 
-    TPU-native analogue of ``stepsize_from_optimizer_state``
+    Analogue of ``stepsize_from_optimizer_state``
     (reference: proximal_location_scale_entropy.jl:26-42): supported for
     Descent / DoG / DoWG only.  Searches the (possibly chained) state tuple.
     """

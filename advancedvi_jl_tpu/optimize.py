@@ -1,6 +1,6 @@
 """The `optimize` driver loop.
 
-TPU-native redesign of the reference driver (reference: src/optimize.jl:42-94).
+Redesign of the reference driver (reference: src/optimize.jl:42-94).
 The reference runs a host loop calling a dynamically-dispatched `step`; here
 the step is compiled once and driven either
 

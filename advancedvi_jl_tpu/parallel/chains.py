@@ -1,12 +1,10 @@
 """Batched (vmapped) VI chains: many independent optimizations in one program.
 
-A TPU-native capability with no reference analogue: run K restarts /
-replicates of the same algorithm simultaneously by vmapping the step over a
-leading chain axis.  All per-chain (d,)-sized ops become (K, d)-sized —
-turning the overhead-bound tiny-model step (flat ~25us regardless of size,
-see bench notes) into real vector/matrix work.  Measured on one v5e chip,
-flagship logreg ADVI (d=62, n_samples=10): 1024 chains cost 2.7x ONE chain —
-7.1M aggregate chain-steps/s vs 19k single-chain, a ~380x aggregate speedup.
+A capability with no reference analogue: run K restarts / replicates of the
+same algorithm simultaneously by vmapping the step over a leading chain
+axis.  All per-chain (d,)-sized ops become (K, d)-sized — turning the
+launch-bound tiny-model step into real vector/matrix work at almost the
+same step time (aggregate chain-steps/s on the H100 are in PERF.md).
 
 The target is NOT vmapped (in_axes=None for ``state.prob``), so the dataset
 is shared across chains, not copied.  Chains differ in their PRNG keys and/or

@@ -5,16 +5,22 @@ distribution layer (SURVEY.md §2.7).  One process per host, all running the
 same program:
 
     from advancedvi_jl_tpu.parallel import distributed
-    distributed.initialize()            # env-driven (TPU pods auto-detect)
+    distributed.initialize(
+        coordinator_address="host0:12345",  # process 0's host, any free port
+        num_processes=2,                     # one process per GPU host
+        process_id=int(os.environ["RANK"]),  # 0 .. num_processes - 1
+    )
     mesh = make_vi_mesh(...)            # spans ALL hosts' devices
     q, info, state = optimize(..., mesh=mesh)
 
-After ``jax.distributed.initialize``, ``jax.devices()`` is global: the same
-mesh/sharding code that the tests exercise on a host-simulated 8-device mesh
-runs unchanged across a pod slice, with the "mc"/"data" collectives riding
-ICI within a slice and DCN across slices.  Gradient/ELBO reductions are the
-only cross-device traffic; parameters and optimizer state stay replicated,
-so per-step communication is O(samples-reduction), not O(params).
+Start the same command on every host, each with its own ``process_id``;
+nothing detects the cluster on its own.  After initialization
+``jax.devices()`` is global: the same mesh/sharding code that the tests
+exercise on a host-simulated 8-device mesh runs unchanged across hosts, with
+the "mc"/"data" collectives carried by NCCL.  Gradient/ELBO reductions are
+the only cross-device traffic; parameters and optimizer state stay
+replicated, so per-step communication is O(samples-reduction), not
+O(params).
 """
 
 from __future__ import annotations
@@ -31,10 +37,10 @@ def initialize(
 ) -> None:
     """Initialize multi-host JAX.
 
-    With no arguments, relies on the TPU pod environment (all args
-    auto-detected by jax.distributed).  For manual clusters pass
-    coordinator_address="host:port", num_processes, process_id.
-    No-op when already initialized or single-process.
+    Pass ``coordinator_address="host:port"`` (the host of process 0),
+    ``num_processes`` and this process's ``process_id``: a GPU cluster has
+    no environment that JAX reads them from.  No-op when already
+    initialized.
     """
     # Idempotence via the official query (jax >= 0.4.34) rather than string-
     # matching an error message; fall back to the message match only on jax

@@ -4,8 +4,7 @@ Each distribution is a small pytree with ``log_prob`` (elementwise,
 jax-traceable), ``sample`` (prior draws, used only for trace-time shape/
 support discovery and prior-predictive utilities), and a ``support`` tag the
 ingestion layer maps onto a Transform (core/transforms.py) to assemble the
-constrained -> unconstrained bijection automatically — the TPU-native
-analogue of the DynamicPPL bridge's varinfo-driven linking
+constrained -> unconstrained bijection automatically — the analogue of the DynamicPPL bridge's varinfo-driven linking
 (reference: ext/AdvancedVIDynamicPPLExt.jl:72-123).
 
 Discrete distributions carry ``support = "discrete"`` and are only valid as

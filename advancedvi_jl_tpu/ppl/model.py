@@ -1,6 +1,6 @@
 """Model ingestion: a probabilistic-program function -> ready-to-fit target.
 
-TPU-native analogue of the reference's DynamicPPL extension
+Analogue of the reference's DynamicPPL extension
 (reference: ext/AdvancedVIDynamicPPLExt.jl:72-211), which turns a PPL model
 into (a) an unconstrained parameter vector, (b) a weighted log-joint
 ``likeadj * loglike + logprior - logjac``, and (c) an in-place ``subsample``.
@@ -447,9 +447,7 @@ class Model:
                 theta[: self._dg_unc]
             )
             for n, (off, sz, shape) in self._slices.items():
-                # static slice (offsets are Python ints): stays
-                # Mosaic-lowerable when the replay runs INSIDE a fused
-                # Pallas kernel via an AD-derived spec (fused_advi.ad_spec)
+                # static slice (offsets are Python ints)
                 v = g_con[off : off + sz]
                 values[n] = v.reshape(shape) if shape else v[0]
         local = theta[self._dg_unc :].reshape(rows, self.local_k)
@@ -502,7 +500,7 @@ class Model:
         """Flat constrained vector -> {site: value} with original shapes."""
         out = {}
         for n, (off, sz, shape) in self._slices.items():
-            # static slice — see _decode (Pallas-lowerable under ad_spec)
+            # static slice — see _decode
             v = theta_constrained[off : off + sz]
             out[n] = v.reshape(shape) if shape else v[0]
         return out

@@ -1,6 +1,6 @@
 """Doubly-stochastic VI: epoch-reshuffled minibatch subsampling.
 
-TPU-native redesign of ``ReshufflingBatchSubsampling``
+Redesign of ``ReshufflingBatchSubsampling``
 (reference: src/reshuffling.jl:13-60).  The reference drops ragged trailing
 batches during optimization specifically to keep prepared-AD shapes stable
 (reshuffling.jl:48-53 rationale comment); XLA makes static shapes mandatory,

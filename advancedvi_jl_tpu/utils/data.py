@@ -1,12 +1,12 @@
 """Host data loader backed by the native C++ reshuffle engine.
 
-For datasets larger than HBM, the device-side schedule (subsampling.py) can't
+For datasets larger than device memory, the device-side schedule (subsampling.py) can't
 hold the data; this loader keeps the dataset in host RAM (or mmap), draws the
 epoch permutation and gathers minibatch rows in native threads off the GIL
 (ops/cpp/reshuffle.cc), and hands contiguous float32 staging arrays to the
 caller to `jax.device_put` (optionally double-buffered by the training loop).
 
-The library is compiled on first use (g++ is baked into the image); if
+The library is compiled on first use (ops/native_build.py); if
 compilation is impossible the loader falls back to a numpy implementation
 with identical semantics — same permutations are NOT guaranteed between the
 two backends (splitmix64 vs numpy), but both are deterministic per seed.
@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
@@ -33,18 +32,11 @@ def _load_lib() -> Optional[ctypes.CDLL]:
     global _LIB, _LIB_FAILED
     if _LIB is not None or _LIB_FAILED:
         return _LIB
+    from ..ops.native_build import build_shared_library
+
     src = os.path.join(_src_dir(), "reshuffle.cc")
-    out = os.path.join(_src_dir(), "libreshuffle.so")
     try:
-        if not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src):
-            subprocess.run(
-                [
-                    "g++", "-O3", "-march=native", "-shared", "-fPIC",
-                    "-o", out, src, "-lpthread",
-                ],
-                check=True,
-                capture_output=True,
-            )
+        out = build_shared_library(src, ["-O3", "-shared", "-fPIC"])
         lib = ctypes.CDLL(out)
         lib.avt_fill_permutation.argtypes = [
             ctypes.c_uint64, ctypes.c_int64,

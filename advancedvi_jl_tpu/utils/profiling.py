@@ -2,12 +2,12 @@
 
 The reference's observability is the per-iteration info NamedTuple on a
 progress bar (reference: src/optimize.jl:65-77, src/utils.jl:2-4).  The
-TPU-native additions (SURVEY.md §5):
+additions here (SURVEY.md §5):
 
 - ``trace(logdir)``: context manager around ``jax.profiler`` — produces a
   TensorBoard-loadable device trace of the jitted step.
 - ``retrace_guard``: asserts a jitted function does NOT recompile after
-  warmup — the TPU analogue of the reference's stale-prepared-tape guards
+  warmup — the analogue of the reference's stale-prepared-tape guards
   (its rejection of compiled ReverseDiff tapes, src/AdvancedVI.jl:87-98):
   silent retracing is the way shape bugs show up as 100x slowdowns.
 - ``nan_debugging``: flips ``jax_debug_nans`` so the divergence check fires

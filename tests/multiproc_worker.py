@@ -8,7 +8,7 @@ single-process tests use, so results must match those bitwise-ish
 
 Exercises the full multi-host story (SURVEY.md §2.7 collectives row):
 jax.distributed bring-up through parallel.distributed.initialize, a global
-mesh spanning both processes, GSPMD collectives riding the (simulated) DCN,
+mesh spanning both processes, GSPMD collectives between the processes,
 sync_hosts barrier, and process-0-only checkpoint writes.
 """
 

@@ -122,8 +122,8 @@ def test_fast_path_actually_taken_and_solve_free(target):
         obj = avt.RepGradELBO(n_samples=4, entropy=avt.STL, fast_entropy=fast)
         txt = jax.jit(lambda qq: obj.loss(qq, target, key)).lower(q).as_text()
         # CPU lowering emits lapack trsm custom-calls OR the library's own
-        # native FFI trisolve (advi_trisolve, when routed); TPU emits
-        # stablehlo triangular_solve — count all spellings.  The FFI call
+        # native FFI trisolve (advi_trisolve, when routed); other backends
+        # emit stablehlo triangular_solve — count all spellings.  The FFI call
         # name itself contains no 'trsm'/'triangular_solve' substring.
         return (
             txt.count("trsm")
